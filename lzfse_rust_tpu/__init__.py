@@ -1,7 +1,7 @@
-"""lzfse_rust_tpu — a TPU-native LZFSE compression framework.
+"""lzfse_rust_tpu — an accelerator-batched LZFSE compression framework.
 
 A from-scratch reimplementation of the LZFSE codec (the capabilities of the
-`lzfse_rust` crate) designed for TPU execution: batched/blocked data-parallel
+`lzfse_rust` crate) designed for GPU execution: batched/blocked data-parallel
 kernels in JAX/Pallas for the compute path, a native C++ host runtime for
 sequential container assembly and streaming IO, and `jax.sharding` mesh
 parallelism for multi-chip scale-out.
@@ -17,7 +17,7 @@ Public API (mirrors the reference crate's surface, src/lib.rs:138-142):
 
 Engines select the best available backend automatically:
   * "native":  C++ host runtime (fast scalar path)
-  * "tpu":     batched JAX/Pallas kernels (block-parallel path)
+  * "device":  batched JAX/Pallas kernels (block-parallel path, models/)
   * "spec":    pure numpy/python oracle (always available)
 """
 

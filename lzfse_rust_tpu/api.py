@@ -4,7 +4,7 @@ Mirrors the four API shapes of the reference (src/lib.rs:138-142):
 one-shot bytes, reusable engine objects, push-style writer, pull-style reader.
 
 Backend selection: the native C++ runtime when built, otherwise the spec
-layer. The TPU batch engines live in `lzfse_rust_tpu.models` and are exposed
+layer. The batched device engines live in `lzfse_rust_tpu.models` and are exposed
 via the `tpu_*` functions for explicitly batched workloads.
 """
 

@@ -3,9 +3,9 @@
 These values define the LZFSE v2 container format and MUST NOT change: they are
 format constants shared by every conforming implementation.
 
-Reference spec: /root/reference/src/fse/constants.rs (symbol counts, state counts,
-value caps, extra-bit/base-value tables), /root/reference/src/vn/constants.rs (LZVN
-caps), /root/reference/src/encode/constants.rs (encoder cutoffs).
+Reference spec: the reference crate's src/fse/constants.rs (symbol counts, state
+counts, value caps, extra-bit/base-value tables), src/vn/constants.rs (LZVN caps),
+src/encode/constants.rs (encoder cutoffs).
 
 The large value->symbol lookup tables (L_BASE_FROM_VALUE and friends) are *derived*
 here from the extra-bits/base-value tables, exactly as the reference's own self-tests

@@ -1,4 +1,4 @@
-"""Error model for the TPU-native LZFSE framework.
+"""Error model for the LZFSE framework.
 
 Decoding is total: any byte sequence yields either a decoded buffer or a typed
 DecodeError — never a crash or hang. Mirrors the error taxonomy of the reference

@@ -39,7 +39,7 @@ def _stats(op: str, n_raw: int, n_payload: int, dt: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="lzfoo", description="LZFSE compress/decompress (TPU framework)")
+        prog="lzfoo", description="LZFSE compress/decompress")
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("-encode", action="store_true")
     mode.add_argument("-decode", action="store_true")

@@ -1,4 +1,5 @@
-"""Batched tANS stream decode — the TPU data plane for FSE payloads.
+"""Batched tANS stream decode in plain XLA — the CPU path for FSE payloads
+and the reference for the GPU kernels (ops/tans_gpu.py).
 
 The format's interleaved-state design (4 literal states, 3 L/M/D states
 sharing one backwards bitstream: src/fse/literals.rs:49-91, lmds.rs:27-60) is
@@ -6,11 +7,9 @@ its built-in parallelism affordance; this module adds the batch dimension:
 every block in flight decodes simultaneously, one fused `lax.scan` step per
 symbol group, with per-block decode tables gathered from device arrays.
 
-Performance notes (measured on TPU v5e): XLA fuses the whole scan body into a
-single on-chip loop when (a) each table entry is ONE packed int32 so a lookup
-is a single gather, and (b) the carry is a flat tuple of (B,) vectors. With
-stacked (B, 4) carries and 3-field table gathers the loop body de-fuses and
-runs ~1000x slower. Packed entry layouts:
+Each table entry is ONE packed int32, so a lookup is a single gather, and
+the scan carry is a flat tuple of (B,) vectors, which keeps the loop body
+one fusion. Packed entry layouts:
 
   U entry:  k | sym << 4 | delta << 12              (k<=10, sym<256, delta<1024)
   V entry:  k | v_bits << 4 | delta << 8 | hi << 17 (delta < 384; hi = value

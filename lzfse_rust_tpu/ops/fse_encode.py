@@ -15,10 +15,10 @@ This module provides the batched building blocks:
     (bits, n_bits) pushes per row in exact stream order
 
 Bit PACKING (turning the (bits, n_bits) stream into payload bytes) runs on
-the host for now: positions are an exclusive prefix sum of n_bits and the
-packing is a short numpy pass; a device scatter formulation and the Pallas
-ports are round-2 work (STATUS.md). The outputs here are validated
-byte-identical to the spec encoder's payloads.
+the host: positions are an exclusive prefix sum of n_bits and the packing
+is a short numpy pass. These scans are the plain reference for the GPU
+emission kernels (ops/tans_gpu.py) and are validated byte-identical to the
+spec encoder's payloads.
 """
 
 from __future__ import annotations
@@ -126,9 +126,9 @@ def pack_bits_host(stream: np.ndarray) -> tuple[bytes, int]:
 
 def pack_group_stream(lo: np.ndarray, meta: np.ndarray, n_groups: int,
                       meta_shift: int) -> tuple[bytes, int]:
-    """Pack one block's Pallas-kernel group stream into payload bytes.
+    """Pack one block's emission-kernel group stream into payload bytes.
 
-    lo/meta: int32 columns from ops/pallas_encode (one entry per push
+    lo/meta: int32 columns from ops/tans_gpu (one entry per push
     group, forward payload order); meta = hi | n << meta_shift where the
     group value is lo (u32) | hi << 32 with n total bits (<= 54).
     Returns (payload, off) exactly as pack_bits_host.

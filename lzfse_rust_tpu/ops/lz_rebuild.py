@@ -2,7 +2,7 @@
 
 The decode sink's match copies are byte-serial in the reference
 (src/lz/object.rs:27-74 with register-expansion tricks for small distances).
-On TPU the same semantics become a parallel fixed point: every output byte's
+On a device the same semantics become a parallel fixed point: every output byte's
 value is ultimately some literal byte, reached through a chain of
 "copy from distance d back" links. Since each link strictly decreases the
 position, the chain is acyclic and pointer doubling (composing the parent map

@@ -98,14 +98,13 @@ def build_decode_tables(weights: jnp.ndarray):
     v_bits = jnp.concatenate([lbits, mbits, dbits], axis=1)
     v_base = jnp.concatenate([lbase, mbase, dbase], axis=1)
     v_delta = jnp.concatenate([ldelta, mdelta, ddelta], axis=1)
-    # Packed single-int32 entries — one gather per table lookup keeps the
-    # decode scan body fusable (see ops/fse_decode.py docstring) and is the
-    # dominant per-step cost in the pallas kernels.
+    # Packed single-int32 entries: one load per table lookup, in the XLA
+    # scans (ops/fse_decode.py) and the GPU kernels (ops/tans_gpu.py).
     #
     # V entries additionally carry the value base in bits 17..31: L/M bases
     # fit directly (<= 312); the D lane stores the D symbol index instead
-    # (6 bits) and the kernel resolves the 64-entry shared base table with
-    # one extra within-tile gather (pallas) / take (XLA).
+    # (6 bits), whose base the GPU kernel computes in closed form (the XLA
+    # scan reads v_base).
     d_sym_of_state = jnp.argmin(
         jnp.where(jnp.asarray(C.D_BASE_VALUE)[None, None, :]
                   == dbase[:, :, None], 
@@ -116,53 +115,3 @@ def build_decode_tables(weights: jnp.ndarray):
     v_packed = v_k | (v_bits << 4) | (v_delta << 8) | (v_hi << 17)
     u_packed = uk | (usym << 4) | (udelta << 12)
     return v_packed, v_base, u_packed
-
-
-@jax.jit
-def build_decode_tables_v3(weights: jnp.ndarray):
-    """weights: (B, 360) int32 -> (v_packed (B, 384), u3 (B, 384),
-    tot (B,)).
-
-    v_packed is the LMD kernel's per-state packed-entry table (the
-    build_decode_tables V layout: k | v_bits<<4 | delta<<8 | hi<<17, with
-    the D lane's hi holding the D symbol whose base follows a closed
-    form). A/B'd in round 4: a sym+aux arithmetic layout (2 gathers vs 3)
-    LOSES on the LMD kernel — 25.5-27 vs 23.6 ms over three packing
-    variants — because its (k, delta) reconstruction costs more VPU ops
-    than the saved gather; per-state entries stay.
-
-    u3 is the literal kernel's compact layout with the aux table
-    HALFWORD-packed (one aux gather instead of two):
-      words [0, 256):   byte-packed symbol per state (state i -> byte i&3
-                        of word i>>2);
-      words [256, 384): per-symbol aux halfwords B | (k0 << 11), from
-                        which (k, delta) reconstruct arithmetically
-                        (A + B == 2048 >> k0 — ops/pallas_decode
-                        _sym_aux_lookup).
-    tot holds each block's normalized U-weight total: states >= tot are
-    latch entries (src/fse/decoder.rs:286-291, 327-334) and the literal
-    kernel overrides the arithmetic path for them.
-    """
-    B = weights.shape[0]
-    wu = weights[:, C.D_TOP:C.U_TOP].astype(jnp.int32)
-    v_packed, _, _ = build_decode_tables(weights)
-
-    _uk, usym, _, _ud = _build_block(
-        wu, C.U_STATES, 0, jnp.arange(C.U_SYMBOLS, dtype=jnp.int32),
-        jnp.zeros(C.U_SYMBOLS, dtype=jnp.int32), 0, True)
-    s4u = usym.reshape(B, 256, 4)
-    u_sym_w = (s4u[:, :, 0] | (s4u[:, :, 1] << 8)
-               | (s4u[:, :, 2] << 16) | (s4u[:, :, 3] << 24))
-    f = wu
-    base = jnp.cumsum(f, axis=1) - f
-    k0 = 11 - _bit_length(jnp.maximum(f, 1))
-    x = ((C.U_STATES << 1) >> k0) - f
-    Bv = base + x
-    # zero-weight symbols have no states; zero their aux so the XLA and
-    # native builders emit identical bytes
-    aux = jnp.where(f > 0, Bv | (k0 << 11), 0).astype(jnp.int32)
-    ua = aux.reshape(B, 128, 2)
-    u_aux_w = ua[:, :, 0] | (ua[:, :, 1] << 16)            # (B, 128)
-    u3 = jnp.concatenate([u_sym_w, u_aux_w], axis=1)       # (B, 384)
-    tot = jnp.sum(f, axis=1).astype(jnp.int32)
-    return v_packed, u3, tot

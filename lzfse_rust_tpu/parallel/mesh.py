@@ -9,8 +9,8 @@ the gather of outputs is a plain all-gather along the batch axis; true
 lengths ride along as a tiny vector.
 
 This module provides jitted, sharding-annotated versions of the pipeline
-stages. There is no NCCL/MPI equivalent to port — XLA inserts the ICI/DCN
-collectives implied by the shardings.
+stages. There is no NCCL/MPI equivalent to port — XLA inserts the
+collectives implied by the shardings (NCCL between GPUs).
 """
 
 from __future__ import annotations
@@ -115,58 +115,42 @@ def sharded_match_find(mesh: Mesh, windows, n_real, vn: bool = False,
     return _match_find_batch(put(windows), put(n_real), vn)
 
 
-def sharded_pallas_entropy_decode(mesh: Mesh, arrays: dict, n_lit_steps: int,
-                                  n_lmd_steps: int, axis: str = "blocks",
-                                  epoch: int | None = None):
-    """Multi-chip serving decode with the PRODUCTION kernels: the block
-    batch shards across the mesh and every chip runs the Pallas tANS
-    kernels (ops/pallas_decode) on its shard under shard_map — blocks are
-    independent by format design, so the kernels partition trivially
-    along the batch and no collectives run until the caller's epilogue.
-    The portable-scan variant (sharded_entropy_decode) remains the
-    GSPMD-annotated path; this is the manual-partitioning counterpart
-    for the fast kernels, validated on the virtual CPU mesh in interpret
-    mode by tests/test_parallel.py.
+def sharded_tans_decode(mesh: Mesh, host, n_lit: int, n_lmd: int,
+                        interpret: bool = False, axis: str = "blocks"):
+    """Multi-device serving decode with the GPU tANS kernels: `host` holds
+    (u_tab, v_tab, words, small) arrays with a leading device axis, one
+    slice per mesh device (models/decoder._prep_shard); each device runs
+    models/decoder.entropy_decode on its slice under shard_map. Blocks are
+    independent by format design, so no collective runs; outputs keep the
+    leading device axis."""
+    sh = shard_batch(mesh, axis)
+    run = _tans_decode_fn(mesh, n_lit, n_lmd, interpret, axis)
+    return run(*(jax.device_put(x, sh) for x in host))
 
-    `arrays` carries batch-leading device inputs in the kernels' shapes:
-    u3_tabs (B, 384) compact literal tables, v_tabs (B, 384) packed
-    per-state V tables, lit_words/lmd_words (B, W) int32,
-    lit_states/lmd_states/lit_pos/lmd_pos/lit_num/lmd_num (B, 128) int32,
-    lit_tot (B,) int32 latch thresholds. B must divide into mesh-size
-    shards that are multiples of 128."""
+
+@functools.lru_cache(maxsize=16)
+def _tans_decode_fn(mesh: Mesh, n_lit: int, n_lmd: int, interpret: bool,
+                    axis: str):
     from jax import shard_map
 
-    from ..ops.pallas_decode import (decode_literals_pallas,
-                                     decode_lmds_pallas)
+    from ..models.decoder import entropy_decode
 
-    sh = shard_batch(mesh, axis)
-    put = lambda x: jax.device_put(jnp.asarray(x), sh)
-    keys = ("u3_tabs", "v_tabs", "lit_words", "lmd_words", "lit_states",
-            "lit_pos", "lit_num", "lit_tot", "lmd_states", "lmd_pos",
-            "lmd_num")
-
+    @jax.jit
     @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=tuple(P(axis) for _ in keys),
-        out_specs=tuple(P(axis) for _ in range(7)),
-        check_vma=False)
-    def run(ut, vt, lw, mw, ls, lp, ln, lt, ms, mp, mn):
-        from ..ops.pallas_decode import EPOCH, EPOCH_LIT
-        ep_l = {} if epoch is None else {"epoch": min(epoch, EPOCH_LIT)}
-        ep_m = {} if epoch is None else {"epoch": min(epoch, EPOCH)}
-        lits, lfs, lfp = decode_literals_pallas(ut, lw, ls, lp, ln, lt,
-                                                n_lit_steps, **ep_l)
-        lm, dd, mfs, mfp = decode_lmds_pallas(vt, mw, ms, mp, mn,
-                                              n_lmd_steps, **ep_m)
-        return lits, lm, dd, lfs, lfp, mfs, mfp
+        shard_map, mesh=mesh, in_specs=(P(axis),) * 4,
+        out_specs=(P(axis),) * 5, check_vma=False)
+    def run(u, v, w, s):
+        out = entropy_decode(u[0], v[0], w[0], s[0], n_lit=n_lit,
+                             n_lmd=n_lmd, interpret=interpret)
+        return tuple(x[None] for x in out)
 
-    return run(*(put(arrays[k]) for k in keys))
+    return run
 
 
 def sharded_grouped_match(mesh: Mesh, pads, n_reals, los, his, orders, oks,
                           vn: bool = False, axis: str = "blocks"):
-    """Multi-chip encode front end over the r5 sort-free grouped kernels:
-    the window batch shards across the mesh and each chip runs the
+    """Multi-device encode front end over the sort-free grouped kernels:
+    the window batch shards across the mesh and each device runs the
     no-sort probe + arbitration (ops/match_find_tpu.
     find_matches_grouped_compact) on its shard under shard_map. Windows
     are independent (each carries its own history context), so no
@@ -195,7 +179,7 @@ def gather_compressed(mesh: Mesh, padded_blocks, lengths, axis: str = "blocks"):
     """Ordered all-gather of fixed-capacity compressed blocks + true lengths.
 
     The multi-chip encode epilogue (SURVEY.md §5 'distributed communication
-    backend'): per-chip block shards, gathered in block order over ICI; host
+    backend'): per-chip block shards, gathered in block order over the interconnect; host
     compaction then drops the padding using `lengths`.
     """
     from jax import shard_map

@@ -1,38 +1,100 @@
-"""Native C++ runtime bindings (ctypes). Built by runtime/build.sh.
+"""Native C++ runtime bindings (ctypes).
 
-Falls back gracefully when the shared library is absent; `available()` gates
-all use. The C++ runtime implements the sequential host paths (scalar codec,
-container assembly, streaming IO) at native speed — the role the reference's
-Rust core plays (it is a 100%-native codec).
+The C++ runtime implements the sequential host paths (scalar codec,
+container assembly, streaming IO, the batch walk/rebuild around the device
+kernels) at native speed — the role the reference's Rust core plays (it is
+a 100%-native codec).
+
+The shared library is built from src/tpulzfse.cpp at first use into
+build/ (gitignored; the file name carries a hash of the source and flags,
+so an edited source rebuilds). Builds are atomic and serialized by a file
+lock, so concurrent processes (pytest-xdist workers) build once.
+`available()` is False when the build fails; `require()` raises with the
+compiler's message — the device paths use it, so a missing runtime is an
+error there rather than a silent switch to another path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import pathlib
+import platform
+import subprocess
+import tempfile
+
+_SRC = pathlib.Path(__file__).parent / "src" / "tpulzfse.cpp"
+_BUILD = pathlib.Path(__file__).parent / "build"
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+             "-Wall", "-pthread")
+
+_LIB = None
+_ERROR: str | None = None
+
+
+class NativeBuildError(RuntimeError):
+    """The native runtime could not be built or loaded."""
 
 
 def available() -> bool:
     return _lib() is not None
 
 
-_LIB = None
-_TRIED = False
+def require():
+    """The loaded library; raises NativeBuildError when it cannot be built."""
+    lib = _lib()
+    if lib is None:
+        raise NativeBuildError(_ERROR or "native runtime unavailable")
+    return lib
+
+
+def library_path() -> pathlib.Path:
+    key = hashlib.sha256(_SRC.read_bytes() + " ".join(
+        CXX_FLAGS + (platform.machine(),)).encode()).hexdigest()[:16]
+    return _BUILD / f"libtpulzfse-{key}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the runtime unless it exists; returns the library path."""
+    so = library_path()
+    if so.exists():
+        return so
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    import fcntl
+    with open(_BUILD / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():  # another process built it while we waited
+            return so
+        fd, tmp = tempfile.mkstemp(dir=_BUILD, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            r = subprocess.run(
+                ["g++", *CXX_FLAGS, "-o", tmp, str(_SRC)],
+                capture_output=True, text=True)
+            if r.returncode != 0:
+                raise NativeBuildError(
+                    f"g++ failed ({r.returncode}): {r.stderr[-2000:]}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return so
 
 
 def _lib():
-    global _LIB, _TRIED
-    if not _TRIED:
-        _TRIED = True
-        import ctypes, pathlib
-        so = pathlib.Path(__file__).parent / "libtpulzfse.so"
-        if so.exists():
-            _LIB = ctypes.CDLL(str(so))
-            _configure(_LIB)
+    global _LIB, _ERROR
+    if _LIB is None and _ERROR is None:
+        try:
+            lib = ctypes.CDLL(str(build()))
+            _configure(lib)
+            _LIB = lib
+        except (OSError, NativeBuildError) as e:
+            _ERROR = f"{type(e).__name__}: {e}"
     return _LIB
 
 
 def _configure(lib) -> None:
-    import ctypes
     lib.tl_decode_bound.restype = ctypes.c_longlong
     lib.tl_decode_bound.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     lib.tl_decode.restype = ctypes.c_longlong
@@ -98,10 +160,6 @@ def _configure(lib) -> None:
     lib.tl_build_tables_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
         ctypes.c_void_p, ctypes.c_void_p]
-    lib.tl_build_tables3_batch.restype = ctypes.c_longlong
-    lib.tl_build_tables3_batch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.tl_load_weights_v2.restype = ctypes.c_longlong
     lib.tl_load_weights_v2.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                        ctypes.c_void_p]
@@ -335,8 +393,7 @@ def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
     Returns (n_conts,) int64 per-container bytes-written-or-negative-error.
     """
     import numpy as np
-    # device downloads can arrive with non-C strides (observed on the TPU
-    # backend at larger batches); the C walker reads raw row-major memory
+    # the C walker reads raw row-major memory
     lm_rows = np.ascontiguousarray(lm_rows, dtype=np.int32)
     d_rows = np.ascontiguousarray(d_rows, dtype=np.int32)
     lit_rows = np.ascontiguousarray(lit_rows, dtype=np.uint8)
@@ -369,23 +426,6 @@ def build_tables_batch(weights16, slots_v, slots_u, v_all, u_all) -> None:
     _lib().tl_build_tables_batch(
         weights16.ctypes.data, slots_v.ctypes.data, slots_u.ctypes.data,
         weights16.shape[0], v_all.ctypes.data, u_all.ctypes.data)
-
-
-def build_tables3_batch(weights16, slots_v, slots_u, v_all, u3_all,
-                        totu_all) -> None:
-    """Build every block's v3 decode tables in one threaded call (see
-    table_build.build_decode_tables_v3 for the layout).
-
-    weights16: (nb, 360) uint16 contiguous; slots_v/slots_u: (nb,) int32
-    destination rows; v_all: (B, 384) int32 packed per-state V entries;
-    u3_all: (B, 384) int32 literal sym+aux; totu_all: (B,) int32 U totals
-    (latch thresholds, literal sort order)."""
-    import numpy as np
-    assert weights16.dtype == np.uint16 and weights16.flags.c_contiguous
-    _lib().tl_build_tables3_batch(
-        weights16.ctypes.data, slots_v.ctypes.data, slots_u.ctypes.data,
-        weights16.shape[0], v_all.ctypes.data, u3_all.ctypes.data,
-        totu_all.ctypes.data)
 
 
 def load_weights_v2(payload: bytes):

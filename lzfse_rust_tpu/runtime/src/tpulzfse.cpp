@@ -1,11 +1,11 @@
-// tpulzfse — native host runtime for the TPU-native LZFSE framework.
+// tpulzfse — native host runtime for the batched LZFSE framework.
 //
 // Role: the sequential host data path (container assembly, scalar codec,
-// streaming IO) that complements the TPU batch kernels — the moral
+// streaming IO) that complements the device batch kernels — the moral
 // equivalent of the reference crate's native core. The format semantics
 // mirror the Python spec layer (lzfse_rust_tpu/spec/*), which is validated
 // bit-exact against the reference fixtures; format constants follow
-// /root/reference/src/fse/constants.rs and src/vn/constants.rs.
+// the reference's src/fse/constants.rs and src/vn/constants.rs.
 //
 // C ABI:
 //   tl_decode_bound(src, n)          -> decoded size (probe) or -errcode
@@ -861,7 +861,7 @@ static int64_t decode_container_mt(const uint8_t* src, size_t n, uint8_t* dst,
 
   std::mutex mu;
   std::condition_variable cv_free, cv_done;
-  std::vector<uint8_t> state(n_slots, 0);  // 0 free, 1 decoded
+  std::vector<uint8_t> state(n_slots, 0);  // 0 free, 2 decoding, 1 decoded
   size_t next_claim = 0;
   std::atomic<bool> abort{false};
 
@@ -877,6 +877,9 @@ static int64_t decode_container_mt(const uint8_t* src, size_t n, uint8_t* dst,
           cv_free.wait(lk);
         }
         j = next_claim++;
+        // busy until decoded: a slot whose block is still decoding must not
+        // be claimed again for the block n_slots later
+        state[j % n_slots] = 2;
       }
       MtSlot& s = slots[j % n_slots];
       const BD& b = blocks[fse_blk[j]];
@@ -961,7 +964,7 @@ static int64_t decode_container_mt(const uint8_t* src, size_t n, uint8_t* dst,
 // Constant-memory decode of unbounded containers (the role of the
 // reference's ReaderCore::fill + ring output, src/decode/reader_core.rs:
 // 56-99,171-188 and src/ring/ring_lz_writer.rs:31-57). Redesigned for the
-// hybrid host/TPU runtime: instead of an input ring + retro-patched output
+// hybrid host/device runtime: instead of an input ring + retro-patched output
 // ring, we buffer at most one bounded FSE block (~121 KB by header
 // validation), decode its LMD rows up front (the sub-block suspend point —
 // the counterpart of FseCore::decode_n, src/fse/fse_core.rs:143-198 — is a
@@ -1481,7 +1484,7 @@ struct FseBackend {
   void finalize() { emit_block(); }
 
   // dump mode: serialize raw block contents (for the device emission
-  // plane — the TPU runs the tANS state scans, the host packs) instead of
+  // plane — the device runs the tANS state scans, the host packs) instead of
   // encoding. Format per block: u32 n_lit, u32 n_lmd, u32 n_match_bytes,
   // lits[n_lit], then n_lmd x (u16 l, u16 m, u32 d packed).
   std::vector<uint8_t>* dump = nullptr;
@@ -2307,7 +2310,7 @@ long long tl_encode_mt(const char* src, size_t n, char* dst, size_t cap) {
 }
 
 // Greedy/lazy selection + FSE block emission from a precomputed match
-// stream (the TPU encoder's host epilogue). `stream` is n_matches rows of
+// stream (the device encoder's host epilogue). `stream` is n_matches rows of
 // int64 (pos, match_pos, fwd_len, back_max) sorted by pos; emits the Vx2
 // block body for this window (no container EOS).
 static long long select_into_backend(const uint8_t* src, size_t n,
@@ -2674,7 +2677,7 @@ long long tl_frontend_stage(const char* src_c, size_t n, long long* weights,
 }
 
 // LZ77 reconstruction from a flattened (l, m, d) row stream + literal pool
-// (the host half of the hybrid TPU decode: entropy on device, copy-back
+// (the host half of the hybrid device decode: entropy on device, copy-back
 // here). Rows are int32 triples; returns bytes written or -errcode.
 long long tl_rebuild(const int* rows, size_t n_rows, const char* lits_c,
                      size_t n_lits, char* dst, size_t cap) {
@@ -2702,7 +2705,7 @@ long long tl_rebuild(const int* rows, size_t n_rows, const char* lits_c,
 }
 
 // Fused flatten + LZ rebuild for a batch of containers (the host half of
-// the hybrid TPU decode; replaces a Python flatten loop + per-container
+// the hybrid device decode; replaces a Python flatten loop + per-container
 // rebuild calls). Each container is a sequence of 6-int parts
 // [kind, a, b, c, d, src_idx]: kind 0 parts read the device kernels'
 // decoded (l,m,d) rows and literal rows in place (a = block row index,
@@ -2907,78 +2910,6 @@ long long tl_scatter_rows(const char* cat, const long long* offs,
     char* row = dst + (size_t)slots[i] * row_stride;
     memcpy(row, cat + offs[i], len);
     memset(row + len, 0, 8);
-  }
-  return 0;
-}
-
-// v3 decode tables (ops/table_build.py build_decode_tables_v3, consumed
-// by the Pallas kernels): v_packed (384 words/block) keeps the per-state
-// packed V entries (build_packed_block — the sym+aux arithmetic variant
-// was A/B'd slower on the LMD kernel); u3 (384 words/block) is the
-// literal kernel's compact layout with HALFWORD-packed per-symbol aux:
-// byte-packed symbols [0,256) + aux halfwords B | (k0 << 11) [256,384).
-// tot = the normalized U-weight total (literal latch threshold).
-static void build_u3_block(const uint16_t* w, int32_t* u3, int32_t* tot_out) {
-  int total = 0;
-  unsigned char syms[U_STATES];
-  uint16_t aux[256];
-  for (int i = 0; i < 256; i++) {
-    int f = w[i];
-    int base = total;
-    if (f) {
-      int bl = 0, t = f;
-      while (t) { bl++; t >>= 1; }
-      int k0 = 11 - bl;
-      int x = ((U_STATES << 1) >> k0) - f;
-      int B = base + x;
-      aux[i] = (uint16_t)(B | (k0 << 11));
-      for (int j = 0; j < f && base + j < U_STATES; j++)
-        syms[base + j] = (unsigned char)i;
-      total += f;
-    } else {
-      aux[i] = 0;
-    }
-  }
-  if (total > U_STATES) total = U_STATES;
-  for (int s = total; s < U_STATES; s++) syms[s] = 0;
-  memcpy(u3, syms, U_STATES);
-  memcpy((char*)u3 + 256 * 4, aux, 256 * 2);
-  *tot_out = total;
-}
-
-long long tl_build_tables3(const unsigned short* w, int* v_packed, int* u3,
-                           int* tot) {
-  build_packed_block((const uint16_t*)w, 20, L_STATES, 0, L_EXTRA, L_BASE,
-                     false, false, v_packed);
-  build_packed_block((const uint16_t*)w + 20, 20, M_STATES, L_STATES,
-                     M_EXTRA, M_BASE, false, false, v_packed + L_STATES);
-  build_packed_block((const uint16_t*)w + 40, 64, D_STATES,
-                     L_STATES + M_STATES, D_EXTRA, D_BASE, false, true,
-                     v_packed + L_STATES + M_STATES);
-  build_u3_block((const uint16_t*)w + 104, u3, tot);
-  return 0;
-}
-
-long long tl_build_tables3_batch(const unsigned short* w, const int* slots_v,
-                                 const int* slots_u, size_t nb, int* v_all,
-                                 int* u_all, int* totu_all) {
-  unsigned nt = std::thread::hardware_concurrency();
-  if (nt == 0) nt = 1;
-  if (nt > 8) nt = 8;
-  if (nb < 32) nt = 1;
-  auto work = [&](size_t t0) {
-    for (size_t i = t0; i < nb; i += nt)
-      tl_build_tables3(w + i * 360, v_all + (size_t)slots_v[i] * 384,
-                       u_all + (size_t)slots_u[i] * 384,
-                       totu_all + slots_u[i]);
-  };
-  if (nt == 1) {
-    work(0);
-  } else {
-    std::vector<std::thread> th;
-    for (unsigned t = 1; t < nt; t++) th.emplace_back(work, t);
-    work(0);
-    for (auto& x : th) x.join();
   }
   return 0;
 }

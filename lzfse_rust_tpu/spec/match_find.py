@@ -2,7 +2,7 @@
 
 The reference match finder (src/encode/frontend_bytes.rs:160-268 +
 src/encode/history.rs) is a per-byte sequential loop over a 4-way hash-bucket
-FIFO. Its key property, which this module exploits and the TPU kernels rely
+FIFO. Its key property, which this module exploits and the device kernels rely
 on: *history contents are match-decision independent*. Every position < i has
 been pushed into its bucket exactly once, in order, by the time position i is
 probed (the hot loop pushes the probed position, and sync_history pushes all

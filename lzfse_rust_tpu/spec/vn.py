@@ -148,7 +148,7 @@ def _match(sink: LzSink, match_len: int, match_distance: int) -> None:
 def parse_vn_rows(payload: bytes, n_raw_bytes: int, n_payload_bytes: int
                   ) -> tuple[np.ndarray, bytes]:
     """Parse a Vxn opcode stream into (rows, literal_pool) without executing
-    the LZ copies — the host-side front half of the TPU decode pipeline.
+    the LZ copies — the host-side front half of the batched decode pipeline.
 
     Rows are (literal_len, match_len, d_effective) with previous-distance ops
     already resolved (the in-block equivalent of substitute). Invalid

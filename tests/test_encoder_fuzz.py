@@ -7,9 +7,8 @@ this image, cross-engine byte identity on *arbitrary generated* inputs is
 what closes the encode-side oracle gap — the spec encoder equals the
 reference's golden vectors on every fixture, so native == spec on fuzzed
 inputs extends that equality beyond the fixtures. The device emission
-plane's identity on the same families is covered by the interpret-mode
-tests (tests/test_pallas_kernels.py) and on hardware by
-tools/test_tpu_encoder_corpus.py.
+kernels' identity is covered by the interpreted-kernel tests
+(tests/test_tans_gpu.py) and on the card by chip_smoke.py.
 """
 
 import hashlib

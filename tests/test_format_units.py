@@ -157,13 +157,12 @@ def test_native_table_build_matches_device_build():
 
     if not native.available():
         _pytest.skip("native runtime not built")
-    import pathlib
-
     import lzfse_rust_tpu.models.decoder as M
+    from lzfse_rust_tpu.utils import corpus
     fse = []
-    for p in sorted(pathlib.Path("/root/reference/data/snappy")
-                    .glob("*.lzfse"))[:4]:
-        M._parse_container(p.read_bytes(), 0, fse)
+    for _, raw in corpus.generate(0)[:4]:
+        M._parse_container(native.encode_bytes(raw), 0, fse)
+    assert len(fse) >= 4
     ws = np.stack([d.weights for d in fse]).astype(np.int32)
     rng = np.random.default_rng(3)
     ws = np.concatenate(

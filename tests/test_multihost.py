@@ -3,11 +3,11 @@
 Spawns tools/demo_multihost.py: 2 OS processes x 4 CPU devices join a
 jax.distributed cluster, shard the block batch over the global 8-device
 mesh, decode, and run the ordered all-gather epilogue across the process
-boundary (Gloo — the CPU stand-in for ICI/DCN). The demo itself asserts
+boundary (Gloo — the CPU stand-in for the interconnect). The demo itself asserts
 bit-exactness against the spec oracle on host 0.
 
 This is the closest single-box analog of the reference's two-process pipe
-test (/root/reference/test/src/huge.rs:27-43): correctness across real
+test (the reference's test/src/huge.rs:27-43): correctness across real
 process boundaries, here with actual cross-process collectives.
 """
 

@@ -157,6 +157,35 @@ def test_parallel_decode_equivalence(snappy_dir):
         assert a == b, f"cut {cut}"
 
 
+_SLOW_FIRST_BLOCK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from lzfse_rust_tpu.runtime import native
+from lzfse_rust_tpu.utils import corpus
+text = corpus.generate(0, names=["lcet10.txt"])[0][1]
+parts = [text[:120000]] + [text[150000 + 5000 * i:][:4200] for i in range(40)]
+encs = [native.encode_bytes(p) for p in parts]
+container = b"".join(e[:-4] for e in encs) + encs[0][-4:]
+want = b"".join(parts)
+assert all(native.decode_bytes(container) == want for _ in range(2000))
+"""
+
+
+def test_parallel_decode_slow_first_block():
+    """tl_decode_mt with heavy first FSE blocks followed by 40 light ones:
+    the light blocks finish while the first still decodes, so the pool
+    reaches the first block's slot again (MT_SLOTS later) before it is
+    free. That slot must stay busy until decoded; reusing it hung or
+    replayed another block's rows. A child process turns a hang into a
+    failure."""
+    import pathlib
+    import subprocess
+    import sys
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    subprocess.run([sys.executable, "-c", _SLOW_FIRST_BLOCK, repo],
+                   check=True, timeout=120)
+
+
 def test_parallel_encode_equivalence(snappy_dir):
     """tl_encode_mt (sequential exact frontend + pooled per-block emission)
     must be byte-identical to the sequential engine on single- and
@@ -199,17 +228,20 @@ def test_decode_into_zero_copy(snappy_dir):
         native.decode_into(bad, out, parallel=False)
 
 
-def test_native_tables3_match_xla_builder(snappy_dir):
-    """The native v3 sym+aux decode-table builder must emit byte-identical
-    tables to the XLA builder (table_build.build_decode_tables_v3) —
-    corpus weights plus degenerate shapes (sub-total classes = latch
-    regions, empty classes)."""
+def test_native_tables_batch_match_xla_builder(snappy_dir):
+    """The native batched decode-table builder (the GPU path's tables)
+    must emit byte-identical tables to the XLA builder
+    (table_build.build_decode_tables) — corpus weights plus degenerate
+    shapes (sub-total classes = latch regions, empty classes), written to
+    permuted destination rows."""
     jnp = pytest.importorskip("jax.numpy")
     import lzfse_rust_tpu.models.decoder as M
-    from lzfse_rust_tpu.ops.table_build import build_decode_tables_v3
+    from lzfse_rust_tpu.ops.table_build import build_decode_tables
 
     fse: list = []
-    for i, p in enumerate(sorted(snappy_dir.glob("*.lzfse"))):
+    paths = sorted(snappy_dir.glob("*.lzfse"))
+    assert len(paths) == 12
+    for i, p in enumerate(paths):
         M._parse_container(p.read_bytes(), i, fse)
     rows = [d.weights for d in fse]
     # degenerate weight shapes: sub-total classes latch, empty classes
@@ -222,12 +254,9 @@ def test_native_tables3_match_xla_builder(snappy_dir):
     w16 = np.ascontiguousarray(np.stack(rows).astype(np.uint16))
     nb = len(rows)
     v_n = np.zeros((nb, 384), np.int32)
-    u_n = np.zeros((nb, 384), np.int32)
-    totu = np.zeros(nb, np.int32)
-    slots = np.arange(nb, dtype=np.int32)
-    native.build_tables3_batch(w16, slots, slots, v_n, u_n, totu)
-    v_x, u_x, tot_x = build_decode_tables_v3(
-        jnp.asarray(w16.astype(np.int64)))
-    assert np.array_equal(v_n, np.asarray(v_x))
-    assert np.array_equal(u_n, np.asarray(u_x))
-    assert np.array_equal(totu, np.asarray(tot_x))
+    u_n = np.zeros((nb, 1024), np.int32)
+    slots = np.random.default_rng(5).permutation(nb).astype(np.int32)
+    native.build_tables_batch(w16, slots, slots, v_n, u_n)
+    v_x, _, u_x = build_decode_tables(jnp.asarray(w16.astype(np.int32)))
+    assert np.array_equal(v_n[slots], np.asarray(v_x))
+    assert np.array_equal(u_n[slots], np.asarray(u_x))

@@ -1,21 +1,18 @@
 """Native batch container walk vs the Python parse — acceptance and
 descriptor parity.
 
-The TPU decode fast path trusts `tl_walk_batch` for parsing; these tests
+The GPU decode path trusts `tl_walk_batch` for parsing; these tests
 pin it to the Python `_parse_container` oracle: identical descriptor
 fields on the corpus, and identical accept/reject decisions under
 single-bit mutations (the walk may never accept what Python rejects —
 rejected containers re-parse through Python for exact error semantics)."""
 
-import pathlib
 import random
 
 import numpy as np
 import pytest
 
 import lzfse_rust_tpu.models.decoder as M
-
-SNAPPY = pathlib.Path("/root/reference/data/snappy")
 
 
 def _native():
@@ -25,9 +22,10 @@ def _native():
     return n
 
 
-def test_walk_descriptor_parity_corpus():
+def test_walk_descriptor_parity_corpus(snappy_dir):
     native = _native()
-    srcs = [p.read_bytes() for p in sorted(SNAPPY.glob("*.lzfse"))]
+    srcs = [p.read_bytes() for p in sorted(snappy_dir.glob("*.lzfse"))]
+    assert len(srcs) == 12
     from lzfse_rust_tpu import api
     srcs.append(api.encode_bytes(b"hello world, hello world, hello"))
     srcs.append(api.encode_bytes(bytes(range(256)) * 2))
@@ -64,9 +62,9 @@ def test_walk_descriptor_parity_corpus():
                 assert P[0] in (2, 3)
 
 
-def test_walk_mutation_acceptance_agreement():
+def test_walk_mutation_acceptance_agreement(snappy_dir):
     native = _native()
-    base = sorted(SNAPPY.glob("*.lzfse"))[0].read_bytes()
+    base = sorted(snappy_dir.glob("*.lzfse"))[0].read_bytes()
     rng = random.Random(7)
     agree = 0
     n_trials = 200
@@ -88,8 +86,8 @@ def test_walk_mutation_acceptance_agreement():
     assert agree == n_trials  # currently exact agreement; tighten if it drifts
 
 
-def test_walk_truncation_and_garbage():
+def test_walk_truncation_and_garbage(snappy_dir):
     native = _native()
-    base = sorted(SNAPPY.glob("*.lzfse"))[0].read_bytes()
+    base = sorted(snappy_dir.glob("*.lzfse"))[0].read_bytes()
     for bad in (base[:100], base[:-1], base + b"x", b"", b"nope"):
         assert native.walk_batch([bad])[5][0] == 0

@@ -6,14 +6,16 @@ against the spec oracle. The driver's dryrun_multichip covers the same path
 standalone; this keeps it in the regression suite.
 """
 
-import pathlib
-
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 
-FIXTURE = pathlib.Path("/root/reference/data/mutate/vx2.lzfse")
+
+@pytest.fixture(scope="module")
+def vx2(mutate_dir) -> bytes:
+    """A one-FSE-block container (seeded, tests/conftest.py)."""
+    return (mutate_dir / "vx2.lzfse").read_bytes()
 
 
 @pytest.fixture(scope="module")
@@ -24,10 +26,10 @@ def mesh():
     return make_mesh(jax.devices()[:4])
 
 
-def _arrays(B):
+def _arrays(src: bytes, B: int):
     import lzfse_rust_tpu.models.decoder as M
     fse_blocks = []
-    M._parse_container(FIXTURE.read_bytes(), 0, fse_blocks)
+    M._parse_container(src, 0, fse_blocks)
     d = fse_blocks[0]
     lit = np.zeros((B, M.LIT_PAYLOAD_PAD + M._PAD_TAIL), np.uint8)
     lmd = np.zeros((B, M.LMD_PAYLOAD_PAD + M._PAD_TAIL), np.uint8)
@@ -49,14 +51,14 @@ def _arrays(B):
     ), d
 
 
-def test_sharded_pipeline_matches_oracle(mesh):
+def test_sharded_pipeline_matches_oracle(mesh, vx2):
     from lzfse_rust_tpu.parallel.mesh import (gather_compressed,
                                               sharded_entropy_decode,
                                               sharded_rebuild)
     from lzfse_rust_tpu.spec import container as spec
 
     B = 8
-    arrays, d = _arrays(B)
+    arrays, d = _arrays(vx2, B)
     literals, lmds, ok = sharded_entropy_decode(
         mesh, arrays, n_lit_steps=(d.block.literal.num + 3) // 4,
         n_lmd_steps=d.block.lmd.num)
@@ -70,7 +72,7 @@ def test_sharded_pipeline_matches_oracle(mesh):
         np.full(B, d.block.n_raw_bytes, np.int32),
         n_out=(d.block.n_raw_bytes + 4095) // 4096 * 4096)
     assert np.asarray(rok).all()
-    want = spec.decode_bytes(FIXTURE.read_bytes())
+    want = spec.decode_bytes(vx2)
     for b in range(B):
         assert np.asarray(out)[b, :d.block.n_raw_bytes].tobytes() == want
 
@@ -83,85 +85,33 @@ def test_sharded_pipeline_matches_oracle(mesh):
     assert (np.asarray(g_lens) == lens).all()
 
 
-@pytest.mark.slow
-def test_sharded_pallas_kernels_match_unsharded(mesh, monkeypatch):
-    """The production Pallas kernels under shard_map (manual batch
-    partitioning) must produce exactly the unsharded kernels' outputs —
-    the real multi-chip serving decode path, run in interpret mode on
-    the virtual CPU mesh. Slow tier: interpret-mode tracing of the
-    sectioned kernels across a 4-device mesh costs minutes."""
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
+def test_sharded_tans_kernels_match_unsharded(mesh, snappy_dir):
+    """The GPU tANS kernels under shard_map (one slice of the blocks per
+    device, parallel/mesh.sharded_tans_decode) must produce exactly the
+    unsharded kernels' outputs; kernels interpreted on the virtual CPU
+    mesh."""
+    from lzfse_rust_tpu.parallel.mesh import sharded_tans_decode
+    from lzfse_rust_tpu.utils import kernel_check as K
 
-    import lzfse_rust_tpu.models.decoder as M
-    import lzfse_rust_tpu.ops.pallas_decode as P
-    from lzfse_rust_tpu.base import constants as C
-    from lzfse_rust_tpu.ops.table_build import build_decode_tables_v3
-    from lzfse_rust_tpu.parallel.mesh import sharded_pallas_entropy_decode
-
-    real_call = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: real_call(*a, **{**k, "interpret": True}))
-
-    fse = []
-    M._parse_container(FIXTURE.read_bytes(), 0, fse)
-    d = fse[0]
-    n_dev = len(mesh.devices.flat)
-    B = n_dev * P.R_ROWS
-    W = 512
-
-    weights = np.tile(d.weights.astype(np.int32), (B, 1))
-    v_packed, u3, tot = build_decode_tables_v3(jnp.asarray(weights))
-
-    def prep(payload, states, bits, num, offs):
-        p = np.zeros((B, W * 4), np.uint8)
-        p[:, :len(payload)] = np.frombuffer(payload, np.uint8)
-        words = p.view("<i4").copy()
-        pos = np.full(B, len(payload) * 8 - bits, np.int32)
-        st = np.zeros((B, 128), np.int32)
-        st[:, :len(states)] = [s + o for s, o in zip(states, offs)]
-        return (words, st, np.repeat(pos[:, None], 128, 1),
-                np.full((B, 128), num, np.int32))
-
-    lw, ls, lp, ln = prep(d.lit_payload, d.block.literal.state,
-                          d.block.literal.bits, d.block.literal.num,
-                          (0, 0, 0, 0))
-    mw, ms, mp, mn = prep(d.lmd_payload, d.block.lmd.state,
-                          d.block.lmd.bits, d.block.lmd.num,
-                          (0, C.L_STATES, C.L_STATES + C.M_STATES))
-    # truncated step counts: the assertion is sharded == unsharded (same
-    # kernels, same inputs), so a 1-superepoch run fully exercises the
-    # shard_map partitioning at a fraction of the interpret cost
-    n_lit = min((d.block.literal.num + 3) // 4, 64)
-    n_lmd = min(d.block.lmd.num, 64)
-
-    arrays = dict(u3_tabs=u3, v_tabs=v_packed, lit_words=lw,
-                  lmd_words=mw, lit_states=ls, lit_pos=lp, lit_num=ln,
-                  lit_tot=tot, lmd_states=ms, lmd_pos=mp, lmd_num=mn)
-    s_lits, s_lm, s_dd, s_lfs, s_lfp, s_mfs, s_mfp = \
-        sharded_pallas_entropy_decode(mesh, arrays, n_lit, n_lmd)
-
-    u_lits, u_lfs, u_lfp = P.decode_literals_pallas(
-        u3, jnp.asarray(lw), jnp.asarray(ls), jnp.asarray(lp),
-        jnp.asarray(ln), tot, n_lit)
-    u_lm, u_dd, u_mfs, u_mfp = P.decode_lmds_pallas(
-        v_packed, jnp.asarray(mw), jnp.asarray(ms), jnp.asarray(mp),
-        jnp.asarray(mn), n_lmd)
-
-    for s, u in ((s_lits, u_lits), (s_lm, u_lm), (s_dd, u_dd),
-                 (s_lfs, u_lfs), (s_lfp, u_lfp), (s_mfs, u_mfs),
-                 (s_mfp, u_mfp)):
-        assert np.array_equal(np.asarray(s), np.asarray(u))
+    src = (snappy_dir / "Mark.Twain-Tom.Sawyer.txt.lzfse").read_bytes()
+    case = K.decode_case([src] * 4)  # one FSE block per container
+    want = [np.asarray(x) for x in K.run_decode_kernels(case, True)]
+    host = tuple(np.stack([case[k]] * 4) for k in
+                 ("u_tab", "v_tab", "words", "small"))
+    got = sharded_tans_decode(mesh, host, case["n_lit"], case["n_lmd"],
+                              interpret=True)
+    assert {d.id for d in got[0].devices()} == {
+        d.id for d in mesh.devices.flat}
+    for g, w in zip(got, want):
+        for k in range(4):
+            assert np.array_equal(np.asarray(g)[k], w)
 
 
-def test_tpu_decoder_mesh_end_to_end(mesh, monkeypatch):
+def test_tpu_decoder_mesh_end_to_end(mesh, vx2, gpu_path):
     """TpuDecoder(mesh=...) serving path: container-in -> bytes-out with
-    the block batch sharded across the mesh (production kernels under
-    shard_map, interpret mode) — the composed multi-chip capability, not
-    just its stages. Byte-checked against the spec oracle."""
-    from jax.experimental import pallas as pl
-
+    the block batch sharded across the mesh (GPU kernels under shard_map,
+    interpreted) — the composed multi-device capability, not just its
+    stages. Byte-checked against the spec oracle."""
     import lzfse_rust_tpu.models.decoder as M
     from lzfse_rust_tpu import api
     from lzfse_rust_tpu.spec import container as spec_container
@@ -170,22 +120,14 @@ def test_tpu_decoder_mesh_end_to_end(mesh, monkeypatch):
     if native is None:
         pytest.skip("native runtime not built")
 
-    real_call = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: real_call(*a, **{**k, "interpret": True}))
-
-    fse_src = FIXTURE.read_bytes()
     vn_src = api.encode_bytes(b"mesh serving, mesh serving, mesh serving!")
-    # a 2-device mesh keeps the interpret-mode cost fast-tier (~1 min);
-    # the full 8-device composition runs in dryrun_multichip every round
-    from lzfse_rust_tpu.parallel.mesh import make_mesh
-    dec = M.TpuDecoder(use_native_rebuild=True,
-                       mesh=make_mesh(jax.devices()[:2]))
-    sources = [fse_src, vn_src]
+    dec = M.TpuDecoder(mesh=mesh)
+    sources = [vx2, vn_src, vx2, vx2, vx2]
     stats: dict = {}
     outs = dec.decode_many(sources, stats=stats)
     assert stats.get("fallbacks", 0) == 0
+    assert dec.last_path == "gpu"
+    assert dec.last_devices == sorted(d.id for d in mesh.devices.flat)
     for src, out in zip(sources, outs):
         assert bytes(out) == spec_container.decode_bytes(src)
 
@@ -209,7 +151,7 @@ def test_tpu_encoder_mesh_end_to_end(mesh):
         b" ".join(words[int(i)] for i in rng.integers(0, 64, 5000)),
         bytes(rng.integers(0, 256, 9000, dtype=np.uint8)),
     ]
-    enc = TpuEncoder(device_emission=False, mesh=mesh)
+    enc = TpuEncoder(mesh=mesh)
     assert enc.frontend == "device"
     got = enc.encode_many(sources)
     for s, g in zip(sources, got):

@@ -1,6 +1,6 @@
-"""TPU decode pipeline tests on the portable XLA path (CPU backend here;
-the pallas kernels run the same pipeline on real TPUs and are exercised by
-bench/tools on hardware)."""
+"""TpuDecoder on the CPU path (XLA scans + native or XLA LZ rebuild).
+The GPU path (tANS kernels) is covered by test_walk_pipeline.py with the
+kernels interpreted and by chip_smoke.py on the card."""
 
 import hashlib
 
@@ -13,8 +13,7 @@ jax = pytest.importorskip("jax")
 @pytest.fixture(scope="module", params=["native-rebuild", "device-rebuild"])
 def decoder(request):
     from lzfse_rust_tpu.models.decoder import TpuDecoder
-    return TpuDecoder(use_pallas=False,
-                      use_native_rebuild=request.param == "native-rebuild")
+    return TpuDecoder(use_native_rebuild=request.param == "native-rebuild")
 
 
 def check(decoder, path):
@@ -25,8 +24,13 @@ def check(decoder, path):
 
 
 def test_mutate_fixtures(decoder, mutate_dir):
-    for name in ["raw", "vxn", "vx1", "vx2"]:
-        check(decoder, mutate_dir / f"{name}.lzfse")
+    paths = sorted(mutate_dir.glob("*.lzfse"))
+    assert [p.name for p in paths] == [
+        "raw.lzfse", "vx1.lzfse", "vx2.lzfse", "vxn.lzfse"]
+    for p in paths:
+        check(decoder, p)
+        assert decoder.last_path == ("cpu" if p.stem.startswith("vx")
+                                     and p.stem != "vxn" else None)
 
 
 def test_mixed_container(decoder, special_dir):
@@ -37,6 +41,16 @@ def test_small_corpus_file(decoder, snappy_dir):
     # one FSE-heavy corpus file through the batched pipeline (bigger files
     # are covered on-hardware; CPU-backend scans are slow)
     check(decoder, snappy_dir / "Mark.Twain-Tom.Sawyer.txt.lzfse")
+
+
+def test_synth_batch(decoder, synth_dir):
+    """Every synthetic container in one decode_many call."""
+    paths = sorted(synth_dir.glob("*.lzfse"))
+    assert len(paths) >= 8
+    outs = decoder.decode_many([p.read_bytes() for p in paths])
+    for p, out in zip(paths, outs):
+        want = p.with_suffix(".hash").read_bytes()
+        assert hashlib.sha256(out).digest() == want, p.name
 
 
 def test_batch_many(decoder, mutate_dir, special_dir):

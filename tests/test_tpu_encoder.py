@@ -1,11 +1,9 @@
-"""TPU encoder pipeline on the portable XLA path (CPU backend in tests).
-
-find_matches_device is pure XLA (row gathers + argsort + bounded fori), so
-it runs anywhere; on-hardware byte-identity with the native encoder is
-verified by tools/test_tpu_encoder_corpus.py.
+"""TpuEncoder on the CPU path (device-window match finding in XLA, host
+emission) and, through the `gpu_path` fixture, on the GPU path with the
+emission kernels interpreted. find_matches_device is pure XLA (row gathers
++ argsort + bounded fori), so it runs anywhere; chip_smoke.py checks the
+GPU path's byte identity with the native encoder on the card.
 """
-
-import pathlib
 
 import numpy as np
 import pytest
@@ -112,23 +110,14 @@ def test_encode_many_matches_encode_bytes():
         assert g == enc.encode_bytes(s)
 
 
-def test_staged_serving_path_byte_identity(snappy_dir, monkeypatch):
+def test_staged_serving_path_byte_identity(snappy_dir, gpu_path):
     """The fused native frontend+staging serving path (tl_frontend_stage +
     pooled emission kernels + tl_pack_stage) must be byte-identical to the
     native/spec encoders, including a period-split (emit_best alt-variant)
     source. Kernels run in interpret mode on the CPU backend."""
-    from jax.experimental import pallas as pl
-
     from lzfse_rust_tpu.base import constants as C
     from lzfse_rust_tpu.models.encoder import TpuEncoder
     from lzfse_rust_tpu.runtime import native
-
-    if not native.available():
-        pytest.skip("native runtime not built")
-    real_call = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: real_call(*a, **{**k, "interpret": True}))
 
     html = native.decode_bytes((snappy_dir / "html.lzfse").read_bytes())
     rng = np.random.default_rng(7)
@@ -136,16 +125,17 @@ def test_staged_serving_path_byte_identity(snappy_dir, monkeypatch):
     reps = (pat * (45000 // 13 + 1))[:45000]  # period-13: alt eligible
     srcs = [html[:50000], reps]
     big = [i for i, s in enumerate(srcs) if len(s) > C.VN_CUTOFF]
-    enc = TpuEncoder(device_emission=True, frontend="native")
+    enc = TpuEncoder(frontend="native")
     results: list = [None] * len(srcs)
     out = enc._encode_many_staged(srcs, big, results)
     for i in big:
         assert out[i] == native.encode_bytes(srcs[i]), i
+    assert enc.last_emission == "device"
 
 
 def test_grouped_windows_match_sorted_path(monkeypatch):
     """The sort-free grouped window path (native counting-sort grouping +
-    no-sort device kernels, r5) must return exactly the argsort path's
+    no-sort device kernels) must return exactly the argsort path's
     per-window match streams — same sat re-extension set, same winners."""
     from lzfse_rust_tpu.models.encoder import TpuEncoder
     from lzfse_rust_tpu.runtime import native
@@ -175,24 +165,13 @@ def test_grouped_windows_match_sorted_path(monkeypatch):
                 assert np.array_equal(a, b), k
 
 
-def test_staged_pipeline_chunked_byte_identity(snappy_dir, monkeypatch):
-    """The chunked (pipelined) staged serving path must stay byte-identical
-    to the native encoder: chunk kernel dispatches cover pool windows with
-    masked counts, and the one-call pack consumes the reassembled slot
-    arrays."""
-    from jax.experimental import pallas as pl
-
-    from lzfse_rust_tpu.base import constants as C
+def test_staged_serving_batch_byte_identity(snappy_dir, gpu_path):
+    """A mixed batch through encode_many on the GPU path: every source of
+    the pooled emission pass (blocks of many sources, small sources on the
+    host LZVN/raw path, a period-split source) byte-identical to the
+    native encoder."""
     from lzfse_rust_tpu.models.encoder import TpuEncoder
     from lzfse_rust_tpu.runtime import native
-
-    if not native.available():
-        pytest.skip("native runtime not built")
-    real_call = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: real_call(*a, **{**k, "interpret": True}))
-    monkeypatch.setenv("LZT_ENC_CHUNKS", "3")
 
     html = native.decode_bytes((snappy_dir / "html.lzfse").read_bytes())
     alice = native.decode_bytes(
@@ -200,10 +179,9 @@ def test_staged_pipeline_chunked_byte_identity(snappy_dir, monkeypatch):
     rng = np.random.default_rng(11)
     pat = rng.integers(0, 256, 13, dtype=np.uint8).tobytes()
     reps = (pat * (45000 // 13 + 1))[:45000]  # period-13: alt eligible
-    srcs = [html[:50000], alice[:60000], reps, html[:8000], alice[:30000]]
-    big = [i for i, s in enumerate(srcs) if len(s) > C.VN_CUTOFF]
-    enc = TpuEncoder(device_emission=True, frontend="native")
-    results: list = [None] * len(srcs)
-    out = enc._encode_many_staged(srcs, big, results)
-    for i in big:
-        assert out[i] == native.encode_bytes(srcs[i]), i
+    srcs = [html[:50000], alice[:60000], reps, html[:8000], b"tiny",
+            alice[:30000]]
+    enc = TpuEncoder()
+    out = enc.encode_many(srcs)
+    assert out == [native.encode_bytes(s) for s in srcs]
+    assert enc.last_emission == "device"

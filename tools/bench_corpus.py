@@ -1,13 +1,18 @@
-"""Per-file benchmark rows mirroring the reference bench suite.
+"""Per-file host benchmark rows over the seeded Snappy-shaped corpus.
 
-Reference: /root/reference/bench/src/bench.rs:117-193 — per-corpus-file
-encode + decode rows with stable IDs, plus the synth families (word/repl/
-reps/random). Engines here: native one-shot (`tl_encode`/`tl_decode`),
-native streaming (ring), and — when a TPU is reachable — the amortized
-device entropy-decode rate from the driver bench.
+Mirrors the reference bench suite's per-file rows (the reference's
+bench/src/bench.rs:117-193, stable IDs): encode + decode rates of the native
+one-shot engine (`tl_encode`/`tl_decode`) and native streaming (ring), plus
+the host serving aggregate (container-parallel decode_into). The sources
+are lzfse_rust_tpu/utils/corpus stand-ins for the Snappy files, so the
+`ref *` columns (the Apple C library on the reference README's i5-2500K,
+measured on the original files) are a machine-class anchor only.
 
-Writes a markdown table to PERF.md and prints it.
+    python tools/bench_corpus.py [--seed N]
+
+Prints a markdown table with the host's CPU count.
 """
+import io
 import os
 import pathlib
 import sys
@@ -15,12 +20,9 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-import io
-
-from lzfse_rust_tpu import api
-from lzfse_rust_tpu.runtime import native
-
-DATA = pathlib.Path("/root/reference/data")
+from lzfse_rust_tpu import api  # noqa: E402
+from lzfse_rust_tpu.runtime import native  # noqa: E402
+from lzfse_rust_tpu.utils import corpus  # noqa: E402
 
 SNAPPY_IDS = {  # bench.rs:180-193 tags
     "html": "snap_uflat00_html", "urls.10K": "snap_uflat01_urls",
@@ -47,10 +49,9 @@ REF_ENC = {"snap_uflat00_html": 65.1, "snap_uflat01_urls": 51.3,
 
 
 def _rate(fn, *args, min_time=0.08, samples=5):
-    """2nd-smallest of `samples` ~min_time windows: host-VM contention on
-    this shared box only ever ADDS time (CLAUDE.md), so a low-order
-    statistic estimates the true cost; one mean window swung rows 30-50%
-    under load."""
+    """2nd-smallest of `samples` ~min_time windows: contention from other
+    work on the host only ever ADDS time, so a low-order statistic
+    estimates the true cost."""
     fn(*args)  # warm
     reps = 1
     while True:
@@ -82,8 +83,7 @@ def _ring_encode(raw: bytes) -> int:
     return sink.tell()
 
 
-def row(tag, enc):
-    raw = native.decode_bytes(enc)
+def row(tag, raw):
     ours = native.encode_bytes(raw)
     assert native.decode_bytes(ours) == raw
     n = len(raw)
@@ -91,104 +91,47 @@ def row(tag, enc):
     enc_mbs = n / _rate(native.encode_bytes, raw) / 1e6
     ring_dec = n / _rate(_ring_decode, ours) / 1e6
     ring_enc = n / _rate(_ring_encode, raw) / 1e6
-    return (tag, n, len(enc), len(ours), dec_mbs, enc_mbs, ring_dec, ring_enc)
-
-
-def _read_prev_rates(path):
-    """Existing PERF.md rate cells keyed by row id (for --merge)."""
-    prev = {}
-    try:
-        for line in path.read_text().splitlines():
-            parts = [c.strip() for c in line.split("|")]
-            if len(parts) == 12 and parts[1] not in ("id", "---", ""):
-                try:
-                    prev[parts[1]] = (float(parts[5]), float(parts[7]),
-                                      float(parts[9]), float(parts[10]))
-                except ValueError:
-                    pass
-    except OSError:
-        pass
-    return prev
+    return (tag, n, len(ours), dec_mbs, enc_mbs, ring_dec, ring_enc)
 
 
 def main():
-    # --merge: keep the per-cell MAX of this run and the existing PERF.md
-    # rows. This box is a shared VM whose throughput swings 30-50% with
-    # external load for minutes at a time; contention only ever SLOWS a
-    # run, so the max over runs estimates the true rate (criterion's
-    # min-time logic across epochs).
-    merge = "--merge" in sys.argv
-    perf_path = pathlib.Path(__file__).resolve().parents[1] / "PERF.md"
-    prev = _read_prev_rates(perf_path) if merge else {}
-
-    rows = []
-    for p in sorted((DATA / "snappy").glob("*.lzfse")):
-        name = p.name[:-len(".lzfse")]
-        rows.append(row(SNAPPY_IDS.get(name, name), p.read_bytes()))
-    for p in sorted((DATA / "synth").glob("*.lzfse")):
-        rows.append(row("synth_" + p.name[:-len(".lzfse")], p.read_bytes()))
-    if prev:
-        rows = [
-            (tag, n, apple, ours,
-             *(max(v, pv) for v, pv in zip((d, e, rd, re_),
-                                           prev.get(tag, (0, 0, 0, 0)))))
-            for (tag, n, apple, ours, d, e, rd, re_) in rows]
-
+    seed = int(sys.argv[sys.argv.index("--seed") + 1]) \
+        if "--seed" in sys.argv else 0
+    srcs = corpus.generate(seed)
     lines = [
-        "# Per-file benchmark rows (host native engine, this machine)",
+        f"Seeded corpus (seed {seed}), host native engine, "
+        f"{os.cpu_count()} CPUs:",
         "",
-        "IDs mirror /root/reference/bench/src/bench.rs:117-193. `ref *` columns",
-        "are the Apple C library on the reference README's i5-2500K — a",
-        "machine-class anchor, not a same-machine comparison. The TPU",
-        "batched-decode headline lives in bench.py / BENCH_r*.json.",
-        "Rates are 2nd-smallest-of-5 windows, merged as per-cell max over",
-        "repeated runs (--merge): this shared VM's throughput swings 30-50%",
-        "with external load, which only ever slows a run.",
-        "",
-        "| id | raw B | apple B | ours B | dec MB/s | ref dec | enc MB/s "
+        "| id | raw B | ours B | ref B | dec MB/s | ref dec | enc MB/s "
         "| ref enc | ring dec | ring enc |",
         "|---|---|---|---|---|---|---|---|---|---|",
     ]
-    for (tag, n, apple, ours, d, e, rd, re_) in rows:
-        rdec = REF_DEC.get(tag)
-        renc = REF_ENC.get(tag)
+    for name, raw in srcs:
+        tag, n, ours, d, e, rd, re_ = row(SNAPPY_IDS[name], raw)
         lines.append(
-            f"| {tag} | {n} | {apple} | {ours} | {d:.0f} | "
-            f"{rdec if rdec else '-'} | {e:.0f} | {renc if renc else '-'} | "
+            f"| {tag} | {n} | {ours} | {corpus.REF_SIZE[name]} | {d:.0f} | "
+            f"{REF_DEC.get(tag, '-')} | {e:.0f} | {REF_ENC.get(tag, '-')} | "
             f"{rd:.0f} | {re_:.0f} |")
-    # host serving aggregate: the snappy corpus decoded container-parallel
-    # across cores into caller buffers (native.decode_into under a thread
-    # pool — the zero-copy serving shape bench.py's fallback measures)
+    # host serving aggregate: the corpus decoded container-parallel across
+    # cores into caller buffers (native.decode_into under a thread pool)
     import concurrent.futures as cf
 
     import numpy as np
-    snappy = [p.read_bytes()
-              for p in sorted((DATA / "snappy").glob("*.lzfse"))] * 4
-    bufs = [np.empty(native.decode_bound(s), np.uint8) for s in snappy]
+    encs = [native.encode_bytes(r) for _, r in srcs] * 4
+    bufs = [np.empty(native.decode_bound(s), np.uint8) for s in encs]
     total = sum(native.decode_into(s, b, parallel=False)
-                for s, b in zip(snappy, bufs))
+                for s, b in zip(encs, bufs))
     n_threads = min(os.cpu_count() or 1, 8)
     with cf.ThreadPoolExecutor(n_threads) as ex:
         dt = _rate(lambda: list(ex.map(
             lambda sb: native.decode_into(sb[0], sb[1], parallel=False),
-            zip(snappy, bufs))))
+            zip(encs, bufs))))
     lines += [
         "",
-        f"Host serving aggregate (snappy, container-parallel decode_into, "
-        f"{n_threads} threads): **{total / dt / 1e9:.2f} GB/s**",
+        f"Host serving aggregate (container-parallel decode_into, "
+        f"{n_threads} threads): {total / dt / 1e9:.2f} GB/s",
     ]
-    out = "\n".join(lines) + "\n"
-    # preserve hand-maintained sections (TPU per-file rows etc.) below the
-    # marker across regenerations
-    marker = "<!-- keep: sections below are maintained by hand -->"
-    try:
-        old = perf_path.read_text()
-        if marker in old:
-            out += "\n" + marker + old.split(marker, 1)[1]
-    except OSError:
-        pass
-    perf_path.write_text(out)
-    print(out)
+    print("\n".join(lines))
 
 
 if __name__ == "__main__":

@@ -2,35 +2,30 @@
 """Host-only microbenchmark of the native flatten+LZ-rebuild stage.
 
 Captures the exact arguments decode_many passes to native.flatten_rebuild
-(by running the portable CPU path once over the corpus batch), then times
-the native call in isolation. This is the ~60ms stage of the TPU decode
-pipeline (BENCH_r02 rebuild_s) — iterate on the C++ Sink/replay loop here
-without touching the TPU.
+(by running the CPU path once over the seeded corpus batch), then times the
+native call in isolation — the host rebuild stage of the GPU decode path,
+iterated on without a device.
 
 Usage: python tools/bench_rebuild.py [reps=24]
 """
+import hashlib
 import os
 import pathlib
 import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from lzfse_rust_tpu.runtime import native  # noqa: E402
+from lzfse_rust_tpu.utils import corpus  # noqa: E402
 
-SNAPPY = pathlib.Path("/root/reference/data/snappy")
 REPS = int(sys.argv[1]) if len(sys.argv) > 1 else 24
 
 
 def main():
-    srcs = [p.read_bytes() for p in sorted(SNAPPY.glob("*.lzfse"))] * REPS
+    raws = [r for _, r in corpus.generate(0)]
+    srcs = [native.encode_bytes(r) for r in raws] * REPS
 
     captured = []
     real = native.flatten_rebuild
@@ -41,7 +36,7 @@ def main():
 
     native.flatten_rebuild = capture
     from lzfse_rust_tpu.models.decoder import TpuDecoder
-    dec = TpuDecoder(use_pallas=False, use_native_rebuild=True)
+    dec = TpuDecoder(use_native_rebuild=True)
     stats = {}
     outs = dec.decode_many(srcs, stats=stats)
     native.flatten_rebuild = real
@@ -50,9 +45,7 @@ def main():
     (args, kwargs), = captured
 
     # verify then time
-    import hashlib
-    hashes = [pathlib.Path(str(p)[:-len(".lzfse")] + ".hash").read_bytes()
-              for p in sorted(SNAPPY.glob("*.lzfse"))] * REPS
+    hashes = [hashlib.sha256(r).digest() for r in raws] * REPS
     for o, h in zip(outs, hashes):
         assert hashlib.sha256(o).digest() == h
 

@@ -1,27 +1,21 @@
 """Multi-host scaling-efficiency measurement on the CPU cluster.
 
 The question (BASELINE.md: >=80% efficiency at 2+ hosts): how much does
-crossing PROCESS boundaries (the DCN/ICI analog — Gloo collectives between
-jax.distributed processes) cost the sharded codec pipeline?
+crossing PROCESS boundaries (the interconnect analog — Gloo collectives
+between jax.distributed processes) cost the sharded codec pipeline?
 
-Method — constant-resource strong scaling. This box has 4 cores, so adding
-hosts cannot add compute; instead the SAME 4 devices are split across
+Method — constant-resource strong scaling. Adding CPU "hosts" on one box
+cannot add compute; instead the SAME 4 devices are split across
 1 / 2 / 4 OS processes (4x1, 2x2, 1x4 devices per host). Total compute and
 the global batch stay fixed; the only variable is how many collective hops
 cross a process boundary. Efficiency(N) = T(1 host) / T(N hosts). Each
 config times the sharded entropy pipeline + the ordered all-gather epilogue
 (gather_compressed) over several timed iterations after a barrier'd warmup.
-
-For real-pod extrapolation the analytic epilogue cost is printed alongside:
-the all-gather moves B * cap bytes to every chip; at v5e ICI (~45 GB/s/link
-bidirectional ring, 1-D mesh) that is t_ag ~= (n-1)/n * B*cap / 45e9 s,
-overlappable with the next batch's decode. The per-chip compute shard
-scales 1/n while the gather payload is constant, so the model predicts the
-efficiency floor, printed for 8/16/64 chips at corpus-like shapes.
+These are CPU-process numbers; they say what process boundaries cost the
+sharded program, not what GPUs do.
 
 Run: python tools/bench_scaling.py   (spawns itself per host; ~2 min)
-Output: per-config JSON lines + an efficiency table (also appended to
-STATUS.md by hand — see round-3 notes).
+Output: per-config JSON lines + an efficiency table.
 """
 
 from __future__ import annotations
@@ -41,9 +35,10 @@ TIMED_ITERS = 8
 
 
 def worker(proc_id: int, n_hosts: int, port: int, local: int) -> None:
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
     import jax
 
+    from lzfse_rust_tpu.utils import jax_cache
+    jax_cache.enable()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", local)
     if n_hosts > 1:
@@ -141,19 +136,6 @@ def main() -> int:
     for n in (1, 2, 4):
         print(f"| {n} | {weak[n]*1e3:.1f} | {weak[1]/weak[n]*100:.0f}% |")
 
-    # analytic pod extrapolation: per-chip compute shrinks 1/n, the ordered
-    # all-gather epilogue moves (n-1)/n * B*cap bytes into every chip over
-    # ICI and can overlap the next shard's decode
-    print("\nanalytic v5e pod model (corpus-like: 786KB raw/block, "
-          "cap 256B gather rows, 1.15 GB/s/chip entropy):")
-    for chips in (8, 16, 64):
-        b_total = 35 * 24  # corpus x24 blocks
-        t_comp = (b_total / chips) * (786432 / 1.15e9)
-        t_ag = (chips - 1) / chips * b_total * 256 / 45e9
-        eff = t_comp / (t_comp + t_ag)
-        print(f"  {chips:3d} chips: compute {t_comp*1e3:7.2f} ms, "
-              f"all-gather {t_ag*1e6:6.1f} us -> efficiency "
-              f"{eff*100:.1f}% (un-overlapped)")
     return 0
 
 
